@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Measure basecall error rate of a from-scratch-trained flip-flop model
 on the hermetic pore model — the diagnostic between "the signal loop is
-wired" and "the signal loop decodes" (VERDICT r3 weak #1: production-config
+wired" and "the signal loop decodes" (production-config
 fidelity was 0/48; the reference's real-data basecall error is 8.4%,
 supplementary §7, and decode accuracy collapses well before ~15%).
 
@@ -10,14 +10,14 @@ Usage: python scripts/basecall_error_probe.py --steps 4000 --kmer 6
 """
 import argparse
 import json
-import os
 import pathlib
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
+
+from nanopore_dna_storage.runtime import enable_compile_cache  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -35,6 +35,7 @@ def edit_distance(a, b):
 
 
 def main():
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=4000)
     ap.add_argument("--kmer", type=int, default=6)
@@ -59,11 +60,11 @@ def main():
         jax.config.update("jax_platforms", "cpu")
 
     import jax.numpy as jnp
-    from nanopore_dna_storage_tpu.models import flipflop as ff
-    from nanopore_dna_storage_tpu.models import train as trainmod
-    from nanopore_dna_storage_tpu.ops.crf_decode import (
+    from nanopore_dna_storage.models import flipflop as ff
+    from nanopore_dna_storage.models import train as trainmod
+    from nanopore_dna_storage.ops.crf_decode import (
         basecall_from_path, viterbi_flipflop_batch)
-    from nanopore_dna_storage_tpu.signal.normalize import medmad_normalize
+    from nanopore_dna_storage.signal.normalize import medmad_normalize
 
     cfg = ff.FlipflopConfig(winlen=args.winlen, stride=2,
                             conv_filters=args.filters, hidden=args.hidden,

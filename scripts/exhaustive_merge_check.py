@@ -1,27 +1,27 @@
 #!/usr/bin/env python3
-"""Hardware check: default merge rounds ≡ exhaustive at m >= 11
-(VERDICT r3 weak #6: the XLA backend's 2L+2 production default was only
-ever proven equal to the exhaustive (1+32)*L heap bound at m <= 8,
-because exhaustive rounds are impractically slow on the 2-vCPU suite).
+"""Device check: default merge rounds ≡ exhaustive at m >= 11 (the
+oracle's 2L+2 default is proven equal to the exhaustive (1+32)*L heap
+bound at m <= 8 by the test suite; exhaustive rounds are impractically
+slow on a few CPU cores).
 
-On TPU the same check is minutes: decode the same synthetic posts with
-the XLA backend at default rounds, the XLA backend at exhaustive rounds
-(exact reference-heap semantics, cpp:744-799), and the Pallas kernel
-(whose suppression merge is exact by construction) — all three lists must
-be bit-identical. Writes docs/EXHAUSTIVE_CHECK.json.
+Decodes the same synthetic posts with the oracle at default rounds, the
+oracle at exhaustive rounds (exact reference-heap semantics,
+cpp:744-799), and the traceback backend (whose suppression merge is
+exact by construction) — all three lists must be bit-identical. Writes
+docs/EXHAUSTIVE_CHECK.json.
 
 Usage: python scripts/exhaustive_merge_check.py [--configs m11,m14]
 """
 import argparse
 import json
-import os
 import pathlib
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
+
+from nanopore_dna_storage.runtime import enable_compile_cache  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -31,7 +31,7 @@ CONFIGS = {
     # Reduced-payload variants: the merge structure (NQ sorted lists, L
     # slots, conv-state count C, dup/tie patterns) is independent of
     # msg_len, so these close the m>=11 merge-equivalence gap on CPU
-    # where the full-length XLA compile is impractical (2 vCPUs). The
+    # where the full-length oracle compile is impractical (2 vCPUs). The
     # payloads are sized so the 264-round m=11 exhaustive decode stays
     # within ~1 h on the 2-vCPU box (msg_len 37 measured ~5.4 h).
     "m11cpu": dict(mem=11, rate=5, msg_len=25, list_size=8, dev=6,
@@ -42,6 +42,7 @@ CONFIGS = {
 
 
 def main():
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", default="m11,m14")
     ap.add_argument("--reads", type=int, default=2)
@@ -51,7 +52,7 @@ def main():
     ap.add_argument("--out", default=None,
                     help="output JSON (default docs/EXHAUSTIVE_CHECK.json, "
                          "or _CPU.json with --cpu so the CPU run never "
-                         "clobbers the hardware artifact)")
+                         "clobbers the device artifact)")
     args = ap.parse_args()
     if args.out is None:
         name = "EXHAUSTIVE_CHECK_CPU.json" if args.cpu \
@@ -61,13 +62,13 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from nanopore_dna_storage_tpu.config import (ConvCodeConfig,
+    from nanopore_dna_storage.config import (ConvCodeConfig,
                                                  DecodeConfig)
-    from nanopore_dna_storage_tpu.ops.lva import LVADecoder, NQ
-    from nanopore_dna_storage_tpu.coding.conv import (make_conv_code,
+    from nanopore_dna_storage.ops.lva import LVADecoder, NQ
+    from nanopore_dna_storage.coding.conv import (make_conv_code,
                                                       conv_encode_bases)
-    from nanopore_dna_storage_tpu.ops.synthetic import synthetic_post
-    from nanopore_dna_storage_tpu.io.post import pack_posts
+    from nanopore_dna_storage.ops.synthetic import synthetic_post
+    from nanopore_dna_storage.io.post import pack_posts
 
     results = {}
     for name in args.configs.split(","):
@@ -86,10 +87,9 @@ def main():
 
         lists = {}
         timing = {}
-        pal = "pallas_interpret" if args.cpu else "pallas"
-        runs = [("xla_default", "xla", None),
-                ("xla_exhaustive", "xla", (1 + NQ - 1) * L),
-                ("pallas", pal, None)]
+        runs = [("oracle_default", "oracle", None),
+                ("oracle_exhaustive", "oracle", (1 + NQ - 1) * L),
+                ("traceback", "traceback", None)]
         for label, backend, rounds in runs:
             dec = LVADecoder(DecodeConfig(
                 code=cfg, list_size=L, max_deviation=dev,
@@ -103,22 +103,22 @@ def main():
             print(f"{name}/{label}: {timing[label]}s", flush=True)
             del dec
 
-        eq_def = lists["xla_default"] == lists["xla_exhaustive"]
-        eq_pal = lists["pallas"] == lists["xla_exhaustive"]
+        eq_def = lists["oracle_default"] == lists["oracle_exhaustive"]
+        eq_tb = lists["traceback"] == lists["oracle_exhaustive"]
         results[name] = {
             "config": c, "reads": nreads, "max_deviation": dev,
             "exhaustive_rounds": NQ * L,
             "default_rounds": 2 * L + 2,
             "default_eq_exhaustive": eq_def,
-            "pallas_eq_exhaustive": eq_pal,
+            "traceback_eq_exhaustive": eq_tb,
             "wall_s": timing,
-            "n_lists": [len(x) for x in lists["xla_exhaustive"]],
+            "n_lists": [len(x) for x in lists["oracle_exhaustive"]],
         }
         print(json.dumps({name: results[name]}), flush=True)
         # write incrementally: a partial run still leaves a valid artifact
         pathlib.Path(args.out).write_text(
             json.dumps(results, indent=1) + "\n")
-        assert eq_def and eq_pal, f"{name}: merge-round mismatch"
+        assert eq_def and eq_tb, f"{name}: merge-round mismatch"
 
     print("EXHAUSTIVE CHECK OK", flush=True)
 

@@ -38,7 +38,7 @@ C_SOURCES = ["networks.c", "layers.c", "flappie_matrix.c", "util.c",
 def build_harness(build: pathlib.Path, header_params, stride: int) -> str:
     """Generate model headers + compile the parity driver against the
     unmodified reference sources."""
-    from nanopore_dna_storage_tpu.models.weights import write_model_header
+    from nanopore_dna_storage.models.weights import write_model_header
 
     models = build / "models"
     models.mkdir(parents=True, exist_ok=True)
@@ -89,12 +89,12 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", False)
 
-    from nanopore_dna_storage_tpu.models.flipflop import (
+    from nanopore_dna_storage.models.flipflop import (
         FlipflopConfig, flipflop_transitions, init_params)
-    from nanopore_dna_storage_tpu.ops.fwdbwd import transition_posteriors
-    from nanopore_dna_storage_tpu.ops.crf_decode import (
+    from nanopore_dna_storage.ops.fwdbwd import transition_posteriors
+    from nanopore_dna_storage.ops.crf_decode import (
         viterbi_flipflop, basecall_from_path)
-    from nanopore_dna_storage_tpu.signal.normalize import medmad_normalize
+    from nanopore_dna_storage.signal.normalize import medmad_normalize
 
     cfg = FlipflopConfig(winlen=args.winlen, stride=2,
                          conv_filters=args.filters, hidden=args.hidden,

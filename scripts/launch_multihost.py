@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Launch an N-process multi-host decode job on one machine (testing) or
+"""CPU rehearsal of an N-process multi-host decode job on one machine, or
 print the per-host commands for a real cluster.
 
-Local simulation: each process gets JAX_PLATFORMS=cpu with
---xla_force_host_platform_device_count=<devices-per-host>, connected through
-a local coordinator — the same code path as N TPU hosts over DCN.
+The local run is pinned to the CPU (JAX_PLATFORMS=cpu, NDS_FORCE_CPU=1):
+each process gets --xla_force_host_platform_device_count=<devices-per-host>
+virtual devices, connected through a local coordinator — the same code
+path as N GPU hosts, without touching a card.
 
     python scripts/launch_multihost.py --num-processes 2 \
-        --post-dir /tmp/posts --outdir /tmp/lists --experiment 7
+        --post-dir POSTS --outdir LISTS --experiment 7
 """
 import argparse
 import os
@@ -42,7 +43,7 @@ def main():
 
     port = free_port()
     base = [sys.executable, "-m",
-            "nanopore_dna_storage_tpu.parallel.multihost",
+            "nanopore_dna_storage.parallel.multihost",
             "--coordinator", f"127.0.0.1:{port}",
             "--num-processes", str(args.num_processes),
             "--post-dir", args.post_dir, "--outdir", args.outdir,

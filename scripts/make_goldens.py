@@ -27,10 +27,10 @@ sys.path.insert(0, str(REPO))
 REF_BIN = os.environ.get("REF_VITERBI", "/tmp/refbin/viterbi_nanopore.out")
 GOLDEN = REPO / "tests" / "golden"
 
-from nanopore_dna_storage_tpu.coding.conv import (  # noqa: E402
+from nanopore_dna_storage.coding.conv import (  # noqa: E402
     ConvCodeConfig, make_conv_code, conv_encode_bases, bases_to_str,
 )
-from nanopore_dna_storage_tpu.ops.synthetic import synthetic_post  # noqa: E402
+from nanopore_dna_storage.ops.synthetic import synthetic_post  # noqa: E402
 
 
 def pick_msg_len(mem: int, rate: int, target: int = 100) -> int:
@@ -126,19 +126,17 @@ def m14_production_goldens():
     """Production-shaped m=14 goldens: r=5/6, L=4, msg_len=181 (the 1 pad
     bit, BASELINE.md Table 1 / experiment 8), fwd and RC — the largest
     trellis (C=16384) at its real message length, so the int8 selection
-    codes, CT tiling and the pad path are all exercised against the
-    reference binary (VERDICT r2 weak #5). Beam dev=8 keeps the reference
-    decode tractable (~minutes); production dev=20 is validated on TPU via
-    scripts/tpu_validate_traceback.py --mem 14."""
+    codes and the pad path are exercised against the reference binary.
+    Beam dev=8 keeps the reference decode tractable (~minutes)."""
     rng = np.random.default_rng(1402)
     dec_dir = GOLDEN / "decode14"
     dec_dir.mkdir(parents=True, exist_ok=True)
     cases = []
     mem, rate, list_size = 14, 5, 4
     # (dev, msg_len, tag): the full production message length validates on
-    # the TPU (scripts/tpu_validate_traceback.py --golden, ~10 s/read);
-    # the shorter pair keeps the CPU slow-suite parity test under ~15 min
-    # per case on a 2-vCPU runner (the full pair takes >50 min each).
+    # the GPU (chip_smoke.py phase b); the shorter pair keeps the CPU
+    # slow-suite parity test under ~15 min per case on a 2-vCPU runner
+    # (the full pair takes >50 min each).
     for dev, msg_len, tag in [(8, 181, "prod"), (6, 101, "cpu")]:
       for rc in (False, True):
         code = make_conv_code(

@@ -2,7 +2,7 @@
 """Production reading-cost curve (supplementary Table 2 methodology).
 
 Encodes the 11,280-byte file (supplementary §5.1) at a production
-experiment, decodes a corpus of channel-fidelity reads on hardware
+experiment, decodes a corpus of channel-fidelity reads on the device
 (ShardedDecoder, resume-able), then sweeps read counts in steps of
 --step with --num-trials random subsampling trials per count — exactly
 decode_RS_from_decoded_lists.py:29-68 run over the sweep — and reports
@@ -13,8 +13,8 @@ The published exp-7 reading cost is 7.01 bases/bit at 5,500 reads
 (BASELINE.md Table 2). CAVEAT, stated in the artifact: this corpus uses
 the iid sequence-level channel simulator, which is measurably more
 decodable than the real MinION channel at matched basecall error
-(docs/SIGNAL_FIDELITY.json; supplementary §7's chimeric/unaligned reads
-have no analog here), so an equal-or-lower bases/bit does NOT claim
+(scripts/signal_fidelity_report.py; supplementary §7's chimeric/unaligned
+reads have no analog here), so an equal-or-lower bases/bit does NOT claim
 channel parity — the comparison anchors the pipeline, not the channel.
 
 Usage:
@@ -27,11 +27,13 @@ import os
 import pathlib
 import random
 import sys
+import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
+
+from nanopore_dna_storage.runtime import enable_compile_cache  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -39,13 +41,14 @@ FILE_SIZE = 11280  # bytes (supplementary §5.1)
 
 
 def main():
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--experiment", type=int, default=7)
     ap.add_argument("--reads", type=int, default=4000)
     ap.add_argument("--list-size", type=int, default=8)
     ap.add_argument("--batch", type=int, default=1)
-    ap.add_argument("--backend", default="pallas",
-                    choices=["xla", "pallas", "pallas_interpret"])
+    ap.add_argument("--backend", default="traceback",
+                    choices=["traceback", "oracle"])
     ap.add_argument("--max-deviation", type=int, default=20)
     ap.add_argument("--seed", type=int, default=5)
     ap.add_argument("--sub", type=float, default=0.004)
@@ -54,7 +57,8 @@ def main():
     ap.add_argument("--step", type=int, default=500)
     ap.add_argument("--num-trials", type=int, default=10)
     ap.add_argument("--trial-seed", type=int, default=99)
-    ap.add_argument("--state", default="/tmp/read_cost_state.npz")
+    ap.add_argument("--state", default=os.path.join(tempfile.gettempdir(),
+                                         "read_cost_state.npz"))
     ap.add_argument("--out", default=str(REPO / "docs" / "READ_COST.json"))
     ap.add_argument("--sweep-only", action="store_true",
                     help="skip decoding; sweep whatever the state file "
@@ -65,13 +69,13 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from nanopore_dna_storage_tpu.pipeline.experiments import experiment
-    from nanopore_dna_storage_tpu.pipeline.encode import encode_bytes
-    from nanopore_dna_storage_tpu.pipeline.simulate import simulate_posts
-    from nanopore_dna_storage_tpu.pipeline.decode import (majority_vote,
+    from nanopore_dna_storage.pipeline.experiments import experiment
+    from nanopore_dna_storage.pipeline.encode import encode_bytes
+    from nanopore_dna_storage.pipeline.simulate import simulate_posts
+    from nanopore_dna_storage.pipeline.decode import (majority_vote,
                                                           recover_file)
-    from nanopore_dna_storage_tpu.coding.framing import extract_payload
-    from nanopore_dna_storage_tpu.io.post import pack_posts
+    from nanopore_dna_storage.coding.framing import extract_payload
+    from nanopore_dna_storage.io.post import pack_posts
 
     exp = experiment(args.experiment)
     rng = np.random.default_rng(args.seed)
@@ -93,7 +97,7 @@ def main():
         done, read_idx, read_pay, wall_acc = 0, [], [], 0.0
 
     if not args.sweep_only and done < args.reads:
-        from nanopore_dna_storage_tpu.parallel.mesh import (ShardedDecoder,
+        from nanopore_dna_storage.parallel.mesh import (ShardedDecoder,
                                                             data_mesh)
         mesh = data_mesh()
         mk = lambda rc: ShardedDecoder(  # noqa: E731
@@ -196,7 +200,7 @@ def main():
         "channel": {"sub": args.sub, "del": args.dels, "ins": args.ins},
         "caveat": "iid channel-simulator corpus: more decodable than the "
                   "real MinION channel at matched basecall error "
-                  "(docs/SIGNAL_FIDELITY.json, README 'Simulator "
+                  "(scripts/signal_fidelity_report.py, README 'Simulator "
                   "fidelity'); the sweep validates the Table-2 "
                   "methodology and pipeline, not channel difficulty",
     }

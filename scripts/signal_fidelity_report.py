@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Signal-fidelity accuracy at a PRODUCTION config (VERDICT r2 #8).
+"""Signal-fidelity accuracy at a PRODUCTION config.
 
 Trains the kmer=6 hermetic-pore basecaller from scratch, then runs the
 full signal loop (msg -> conv encode -> squiggle -> basecaller -> fwd-bwd
@@ -13,35 +13,38 @@ signal/squiggle.py); the point is a recorded end-to-end accuracy at
 production scale through the real signal stack.
 
 Usage: python scripts/signal_fidelity_report.py [--reads 48]
-       [--train-steps 1500] [--backend pallas|xla] [--experiment 7]
+       [--train-steps 1500] [--backend traceback|oracle] [--experiment 7]
 """
 import argparse
 import json
 import os
 import pathlib
 import sys
+import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
+
+from nanopore_dna_storage.runtime import enable_compile_cache  # noqa: E402
 
 import numpy as np  # noqa: E402
 
 
 def main():
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--reads", type=int, default=48)
     ap.add_argument("--train-steps", type=int, default=4000)
     ap.add_argument("--list-size", type=int, default=8)
-    ap.add_argument("--backend", default="pallas",
-                    choices=["xla", "pallas", "pallas_interpret"])
+    ap.add_argument("--backend", default="traceback",
+                    choices=["traceback", "oracle"])
     ap.add_argument("--experiment", type=int, default=7,
                     help="published experiment id (7 = m=11 r=5/6)")
     ap.add_argument("--kmer", type=int, default=6)
     ap.add_argument("--batch", type=int, default=2,
-                    help="decode batch; m=11 selections cap one v5e chip "
-                         "at ~2-4 reads per batch (docs/DESIGN.md §6)")
+                    help="decode batch (m=11 selections take ~2.7 GB per "
+                         "read of device memory, docs/DESIGN.md §6)")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--profile", default="clean",
@@ -51,7 +54,9 @@ def main():
                          "bursts, baseline drift, flank mis-trim "
                          "(signal/squiggle.PUBLISHED_PROFILE, calibrated "
                          "against supplementary Table 3)")
-    ap.add_argument("--params-cache", default="/tmp/nds_fidelity_params.npz",
+    ap.add_argument("--params-cache",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "nds_fidelity_params.npz"),
                     help="trained-basecaller cache (training is "
                          "profile-independent; calibration sweeps reuse it)")
     ap.add_argument("--override", default=None,
@@ -65,10 +70,10 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from nanopore_dna_storage_tpu.models import flipflop as ff
-    from nanopore_dna_storage_tpu.pipeline.encode import encode_bytes
-    from nanopore_dna_storage_tpu.pipeline.experiments import experiment
-    from nanopore_dna_storage_tpu.pipeline.simulate import (
+    from nanopore_dna_storage.models import flipflop as ff
+    from nanopore_dna_storage.pipeline.encode import encode_bytes
+    from nanopore_dna_storage.pipeline.experiments import experiment
+    from nanopore_dna_storage.pipeline.simulate import (
         simulate_and_decode_signal)
 
     exp = experiment(args.experiment)
@@ -97,7 +102,7 @@ def main():
     if args.profile == "published":
         import dataclasses
 
-        from nanopore_dna_storage_tpu.signal.squiggle import (
+        from nanopore_dna_storage.signal.squiggle import (
             PUBLISHED_PROFILE)
         profile = PUBLISHED_PROFILE
         if args.override:

@@ -7,7 +7,7 @@ layout that ``utils.profiling.dump_trace_hdf5`` writes (one uint8
 dataset per read, [blocks, 40] = probability * 255, matching flappie's
 trace output, fast5_interface.c:126-143). For each read it renders the
 flip rows, flop rows, and the stay-mass trace to a PNG — headless
-(Agg), since TPU hosts have no display.
+(Agg), since compute hosts have no display.
 
 Usage: python scripts/trace_flipflop_viewer.py TRACE.h5 [--out DIR]
        [--reads id1,id2] [--upper | --no-upper]

@@ -1,8 +1,8 @@
 """Standalone basecalling pipeline (flappie CLI parity surface)."""
 import numpy as np
 
-from nanopore_dna_storage_tpu.models import flipflop as ff
-from nanopore_dna_storage_tpu.pipeline.basecall import (
+from nanopore_dna_storage.models import flipflop as ff
+from nanopore_dna_storage.pipeline.basecall import (
     Basecaller, write_fastq, phred_char,
 )
 

@@ -4,8 +4,8 @@ import json
 import numpy as np
 import pytest
 
-from nanopore_dna_storage_tpu.config import ConvCodeConfig
-from nanopore_dna_storage_tpu.coding.conv import (
+from nanopore_dna_storage.config import ConvCodeConfig
+from nanopore_dna_storage.coding.conv import (
     make_conv_code, conv_encode_bases, bases_to_str, str_to_bases,
     reverse_complement_bases,
 )

@@ -1,8 +1,8 @@
 """Data-prep utilities: archives, SAM parsing, sharding, accuracy stats."""
 import numpy as np
 
-from nanopore_dna_storage_tpu.io import fast5 as fast5_io
-from nanopore_dna_storage_tpu.pipeline.data_prep import (
+from nanopore_dna_storage.io import fast5 as fast5_io
+from nanopore_dna_storage.pipeline.data_prep import (
     parse_sam_mappings, build_raw_signal_archive, sample_read_ids,
     shard_read_ids, basecall_accuracy,
 )
@@ -53,8 +53,8 @@ def test_basecall_accuracy():
 
 
 def test_align_counts_breakdown():
-    from nanopore_dna_storage_tpu.pipeline.data_prep import align_counts
-    from nanopore_dna_storage_tpu.signal.barcode import levenshtein
+    from nanopore_dna_storage.pipeline.data_prep import align_counts
+    from nanopore_dna_storage.signal.barcode import levenshtein
 
     # substitution / insertion / deletion each classified correctly
     assert align_counts("ACGT", "ACCT") == {"sub": 1, "ins": 0, "del": 0}

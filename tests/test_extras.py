@@ -40,7 +40,7 @@ def test_check_raptor_symbol_diff(tmp_path):
 def test_trace_viewer_renders_png(tmp_path):
     """dump_trace_hdf5 -> viewer -> a PNG per read (headless Agg)."""
     h5py = __import__("h5py")  # noqa: F841 — skip cleanly if absent
-    from nanopore_dna_storage_tpu.utils.profiling import dump_trace_hdf5
+    from nanopore_dna_storage.utils.profiling import dump_trace_hdf5
     from trace_flipflop_viewer import plot_read
 
     rng = np.random.default_rng(3)

@@ -1,17 +1,18 @@
-"""List-Viterbi decoder parity vs reference golden decoded lists.
+"""List-Viterbi oracle (ops/lva.py) parity vs reference golden decoded lists.
 
 Each golden case is a synthetic flip-flop posterior decoded by the reference
-C++ binary; we require identical decoded bit lists (same order) from the JAX
-decoder, exercising all code memories, rates, RC, list sizes and the
-max-deviation beam.
+C++ binary; we require identical decoded bit lists (same order) from the
+message-carrying oracle, exercising all code memories, rates, RC, list sizes
+and the max-deviation beam. The production traceback backend runs the same
+goldens in test_lva_traceback_golden.py.
 """
 import json
 
 import numpy as np
 import pytest
 
-from nanopore_dna_storage_tpu.config import ConvCodeConfig, DecodeConfig
-from nanopore_dna_storage_tpu.ops.lva import LVADecoder
+from nanopore_dna_storage.config import ConvCodeConfig, DecodeConfig
+from nanopore_dna_storage.ops.lva import LVADecoder
 
 
 def _cases(golden_dir):
@@ -36,6 +37,7 @@ def _run_case(golden_dir, case, merge_rounds=None):
         list_size=case["list_size"],
         max_deviation=case["max_deviation"],
         merge_rounds=merge_rounds,
+        backend="oracle",
     )
     dec = LVADecoder(cfg)
     post = _load_post(golden_dir, case["name"])

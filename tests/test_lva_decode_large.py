@@ -1,4 +1,4 @@
-"""Large-memory (m>=8) golden decode parity — slow, runs on the CPU mesh.
+"""Large-memory (m>=8) golden parity of the oracle — slow, runs on the CPU.
 
 The fast suite keeps only m=6 cases (<10 min total on 2 vCPUs); every
 m=8/11/14 golden runs here, including the exhaustive-merge-rounds variant
@@ -52,20 +52,18 @@ def test_m14_production_golden_parity(golden_dir, idx):
     """m=14 r=5/6 L=4 fwd+RC, C=16384 — reference-binary lists,
     bit-for-bit (tests/golden/decode14, scripts/make_goldens.py). The CPU
     suite runs the msg_len=101 pair (~15 min/case on 2 vCPUs); the full
-    msg_len=181 production pair is validated on real TPU hardware via
-    scripts/tpu_validate_traceback.py --golden (recorded in
-    docs/DESIGN.md)."""
+    msg_len=181 production pair runs on the card (chip_smoke.py)."""
     with open(golden_dir / "decode14" / "manifest.json") as f:
         cases = json.load(f)
     case = [c for c in cases if c["name"].endswith("_cpu")][idx]
     import numpy as np
-    from nanopore_dna_storage_tpu.config import ConvCodeConfig, DecodeConfig
-    from nanopore_dna_storage_tpu.ops.lva import LVADecoder
+    from nanopore_dna_storage.config import ConvCodeConfig, DecodeConfig
+    from nanopore_dna_storage.ops.lva import LVADecoder
     cfg = DecodeConfig(
         code=ConvCodeConfig(mem=case["mem"], rate=case["rate"],
                             msg_len=case["msg_len"], rc=case["rc"]),
         list_size=case["list_size"],
-        max_deviation=case["max_deviation"])
+        max_deviation=case["max_deviation"], backend="oracle")
     dec = LVADecoder(cfg)
     raw = np.fromfile(golden_dir / "decode14" / f"{case['name']}.post",
                       dtype="<f4").reshape(-1, 5, 8)

@@ -11,8 +11,8 @@ import json
 import numpy as np
 import pytest
 
-from nanopore_dna_storage_tpu.config import ConvCodeConfig, DecodeConfig
-from nanopore_dna_storage_tpu.ops.lva import LVADecoder
+from nanopore_dna_storage.config import ConvCodeConfig, DecodeConfig
+from nanopore_dna_storage.ops.lva import LVADecoder
 
 
 def _cases(golden_dir):
@@ -20,7 +20,7 @@ def _cases(golden_dir):
         return json.load(f)
 
 
-def _run_sync_case(golden_dir, case):
+def _run_sync_case(golden_dir, case, backend="oracle"):
     cfg = DecodeConfig(
         code=ConvCodeConfig(mem=case["mem"], rate=case["rate"],
                             msg_len=case["msg_len"], rc=case["rc"],
@@ -28,6 +28,7 @@ def _run_sync_case(golden_dir, case):
                             sync_period=case["sync_period"]),
         list_size=case["list_size"],
         max_deviation=case["max_deviation"],
+        backend=backend,
     )
     dec = LVADecoder(cfg)
     raw = np.fromfile(golden_dir / "sync" / f"{case['name']}.post",
@@ -48,6 +49,14 @@ def test_sync_golden_parity(golden_dir, idx):
     if case["mem"] >= 8:
         pytest.skip("m>=8 sync cases run in the slow suite (1-2 min each)")
     _run_sync_case(golden_dir, case)
+
+
+@pytest.mark.parametrize("idx", range(5))
+def test_sync_golden_parity_traceback(golden_dir, idx):
+    """The production traceback backend on the m=6 sync goldens: the
+    sync-restricted valid-state masks gate its write-back."""
+    case = [c for c in _cases(golden_dir) if c["mem"] == 6][idx]
+    _run_sync_case(golden_dir, case, backend="traceback")
 
 
 @pytest.mark.slow

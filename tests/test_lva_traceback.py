@@ -1,21 +1,21 @@
-"""Pallas selection-traceback decoder vs the message-carrying XLA path.
+"""Selection-traceback decoder vs the message-carrying oracle.
 
-The pallas backend (ops/lva_pallas.py) reconstructs messages by walking
-per-block selections backward through the double-buffer staleness rule;
-these tests check bit-identical lists (messages AND scores) against the
-XLA path, which is itself golden-validated against the reference binary.
-Runs in interpret mode on CPU; fast configs only (the full golden matrix
-is in test_lva_pallas.py, marked slow).
+The traceback backend (ops/lva_traceback.py) reconstructs messages by
+walking per-block selections backward through the double-buffer staleness
+rule; these tests check bit-identical lists (messages AND scores) against
+the oracle (ops/lva.py), which is itself golden-validated against the
+reference binary. Fast configs only (the m>=8 golden matrix is in
+test_lva_traceback_golden.py, marked slow).
 """
 import numpy as np
 import pytest
 
-from nanopore_dna_storage_tpu.config import ConvCodeConfig, DecodeConfig
-from nanopore_dna_storage_tpu.coding.conv import (conv_encode_bases,
+from nanopore_dna_storage.config import ConvCodeConfig, DecodeConfig
+from nanopore_dna_storage.coding.conv import (conv_encode_bases,
                                                   make_conv_code)
-from nanopore_dna_storage_tpu.io.post import pack_posts
-from nanopore_dna_storage_tpu.ops.lva import LVADecoder
-from nanopore_dna_storage_tpu.ops.synthetic import synthetic_post
+from nanopore_dna_storage.io.post import pack_posts
+from nanopore_dna_storage.ops.lva import LVADecoder
+from nanopore_dna_storage.ops.synthetic import synthetic_post
 
 
 def _posts(enc_cfg, n, rng, rc=False, noise=0.9):
@@ -38,15 +38,16 @@ CASES = [
 
 
 @pytest.mark.parametrize("rate,rc,L,dev", CASES)
-def test_traceback_matches_xla(rate, rc, L, dev):
+def test_traceback_matches_oracle(rate, rc, L, dev):
     rng = np.random.default_rng(rate * 10 + rc)
     enc = ConvCodeConfig(mem=6, rate=rate, msg_len=30)
     msgs, packed, nblks = _posts(enc, 2, rng, rc=rc)
     cfg = ConvCodeConfig(mem=6, rate=rate, msg_len=30, rc=rc)
-    dx = LVADecoder(DecodeConfig(code=cfg, list_size=L, max_deviation=dev))
+    dx = LVADecoder(DecodeConfig(code=cfg, list_size=L, max_deviation=dev,
+                                 backend="oracle"))
     mx, sx, vx = dx.decode(packed, nblks)
     dp = LVADecoder(DecodeConfig(code=cfg, list_size=L, max_deviation=dev,
-                                 backend="pallas_interpret"))
+                                 backend="traceback"))
     mp, sp, vp = dp.decode(packed, nblks)
     assert np.array_equal(vx, vp)
     assert np.array_equal(sx, sp)
@@ -58,16 +59,17 @@ def test_traceback_matches_xla(rate, rc, L, dev):
 def test_traceback_logsumexp_scores():
     """logsumexp path combining changes scores, not selections.
 
-    The pallas suppression merge combines each accepted message's ENTIRE
-    duplicate class at pop time, so the XLA side must run exhaustive merge
+    The suppression merge combines each accepted message's ENTIRE
+    duplicate class at pop time, so the oracle must run exhaustive merge
     rounds (all Q*L candidates pop) to accumulate the same mass."""
     rng = np.random.default_rng(7)
     enc = ConvCodeConfig(mem=6, rate=1, msg_len=24)
     msgs, packed, nblks = _posts(enc, 1, rng)
     kw = dict(list_size=2, max_deviation=8, path_combine="logsumexp")
-    dx = LVADecoder(DecodeConfig(code=enc, merge_rounds=33 * 2, **kw))
+    dx = LVADecoder(DecodeConfig(code=enc, merge_rounds=33 * 2,
+                                 backend="oracle", **kw))
     mx, sx, vx = dx.decode(packed, nblks)
-    dp = LVADecoder(DecodeConfig(code=enc, backend="pallas_interpret", **kw))
+    dp = LVADecoder(DecodeConfig(code=enc, backend="traceback", **kw))
     mp, sp, vp = dp.decode(packed, nblks)
     assert np.array_equal(mx[vx], mp[vp])
     np.testing.assert_allclose(sx, sp, rtol=1e-5)
@@ -75,17 +77,17 @@ def test_traceback_logsumexp_scores():
 
 @pytest.mark.parametrize("batch", [1, 2])
 def test_traceback_chunked(batch):
-    """The chunked decode loop (pallas_chunk < T) is bit-identical to the
+    """The chunked decode loop (chunk_blocks < T) is bit-identical to the
     single-chunk program: chunk boundaries only split the scans, they never
     change carry semantics (docs/DESIGN.md §6)."""
     rng = np.random.default_rng(99)
     enc = ConvCodeConfig(mem=6, rate=5, msg_len=30)
     msgs, packed, nblks = _posts(enc, batch, rng)
-    dx = LVADecoder(DecodeConfig(code=enc, list_size=4, max_deviation=6))
+    dx = LVADecoder(DecodeConfig(code=enc, list_size=4, max_deviation=6,
+                                 backend="oracle"))
     mx, sx, vx = dx.decode(packed, nblks)
     dp = LVADecoder(DecodeConfig(code=enc, list_size=4, max_deviation=6,
-                                 backend="pallas_interpret",
-                                 pallas_chunk=32))
+                                 backend="traceback", chunk_blocks=32))
     mp, sp, vp = dp.decode(packed, nblks)
     assert np.array_equal(vx, vp)
     assert np.array_equal(sx, sp)

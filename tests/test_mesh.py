@@ -9,13 +9,13 @@ jax = pytest.importorskip("jax")
 
 @pytest.mark.slow
 def test_sharded_decoder_matches_single_device():
-    from nanopore_dna_storage_tpu.config import ExperimentConfig
-    from nanopore_dna_storage_tpu.pipeline.encode import encode_bytes
-    from nanopore_dna_storage_tpu.pipeline.simulate import simulate_posts
-    from nanopore_dna_storage_tpu.pipeline.decode import PipelineDecoder
-    from nanopore_dna_storage_tpu.parallel.mesh import ShardedDecoder, data_mesh
-    from nanopore_dna_storage_tpu.io.post import pack_posts
-    from nanopore_dna_storage_tpu.coding.framing import check_and_extract
+    from nanopore_dna_storage.config import ExperimentConfig
+    from nanopore_dna_storage.pipeline.encode import encode_bytes
+    from nanopore_dna_storage.pipeline.simulate import simulate_posts
+    from nanopore_dna_storage.pipeline.decode import PipelineDecoder
+    from nanopore_dna_storage.parallel.mesh import ShardedDecoder, data_mesh
+    from nanopore_dna_storage.io.post import pack_posts
+    from nanopore_dna_storage.coding.framing import check_and_extract
 
     assert len(jax.devices()) == 8, "conftest should provide 8 CPU devices"
     exp = ExperimentConfig(bytes_per_oligo=4, rs_redundancy=0.5,
@@ -50,17 +50,16 @@ def test_sharded_decoder_matches_single_device():
 
 
 @pytest.mark.slow
-def test_sharded_decoder_pallas_backend():
-    """The PRODUCTION path: ShardedDecoder dispatching through the Pallas
-    chunk programs under shard_map over the 8-device mesh (interpret mode
-    on CPU; identical structure to the TPU run). Results must match the
-    single-device pallas decode bit-for-bit (VERDICT r2 #1)."""
-    from nanopore_dna_storage_tpu.config import ExperimentConfig
-    from nanopore_dna_storage_tpu.pipeline.encode import encode_bytes
-    from nanopore_dna_storage_tpu.pipeline.simulate import simulate_posts
-    from nanopore_dna_storage_tpu.pipeline.decode import PipelineDecoder
-    from nanopore_dna_storage_tpu.parallel.mesh import ShardedDecoder, data_mesh
-    from nanopore_dna_storage_tpu.io.post import pack_posts
+def test_sharded_decoder_traceback_backend():
+    """The PRODUCTION path: ShardedDecoder dispatching through the
+    traceback chunk programs under shard_map over the 8-device mesh.
+    Results must match the single-device decode bit-for-bit."""
+    from nanopore_dna_storage.config import ExperimentConfig
+    from nanopore_dna_storage.pipeline.encode import encode_bytes
+    from nanopore_dna_storage.pipeline.simulate import simulate_posts
+    from nanopore_dna_storage.pipeline.decode import PipelineDecoder
+    from nanopore_dna_storage.parallel.mesh import ShardedDecoder, data_mesh
+    from nanopore_dna_storage.io.post import pack_posts
 
     exp = ExperimentConfig(bytes_per_oligo=4, rs_redundancy=0.5,
                            conv_mem=6, conv_rate=1)
@@ -73,12 +72,12 @@ def test_sharded_decoder_pallas_backend():
 
     mesh = data_mesh()
     sharded = ShardedDecoder(exp, list_size=2, rc=False, max_deviation=12,
-                             mesh=mesh, backend="pallas_interpret",
-                             pallas_chunk=32)
+                             mesh=mesh, backend="traceback",
+                             chunk_blocks=32)
     res = sharded.decode(batch, nblks, total)
 
     single = PipelineDecoder(exp, list_size=2, max_deviation=12,
-                             backend="pallas_interpret")
+                             backend="traceback")
     out = single.decode_posts(posts, [False] * len(posts), total)
     assert (res.msgs[res.ok] == out.msgs[out.valid & res.ok]).all()
     assert (res.msgs == out.msgs).all()
@@ -87,21 +86,20 @@ def test_sharded_decoder_pallas_backend():
 
 
 @pytest.mark.slow
-def test_sharded_decoder_pallas_m11_shapes():
-    """Production m=11 SHAPES through the sharded Pallas path on the CPU
-    mesh (VERDICT r3 weak #7: multi-device correctness evidence was
-    toy-config only): conv state space C=2048 -> multi-tile CT=512 kernels
-    with per-offset block views, list size 8, int8 selection codes, a real
-    beam — everything the hardware m=11 decode exercises except scale. A
-    short payload (bytes_per_oligo=2, pad -> msg_len 37) keeps interpret-mode
-    runtime in slow-suite bounds; the shape-relevant axes are untouched.
-    Sharded results must equal the single-device decode bit-for-bit."""
-    from nanopore_dna_storage_tpu.config import ExperimentConfig
-    from nanopore_dna_storage_tpu.pipeline.encode import encode_bytes
-    from nanopore_dna_storage_tpu.pipeline.simulate import simulate_posts
-    from nanopore_dna_storage_tpu.pipeline.decode import PipelineDecoder
-    from nanopore_dna_storage_tpu.parallel.mesh import ShardedDecoder, data_mesh
-    from nanopore_dna_storage_tpu.io.post import pack_posts
+def test_sharded_decoder_traceback_m11_shapes():
+    """Production m=11 SHAPES through the sharded traceback path on the
+    CPU mesh: conv state space C=2048, list size 8, int8 selection codes,
+    a real beam — everything the device m=11 decode exercises except
+    scale. A short payload (bytes_per_oligo=2, pad -> msg_len 37) keeps the
+    CPU runtime in slow-suite bounds; the shape-relevant axes are
+    untouched. Sharded results must equal the single-device decode
+    bit-for-bit."""
+    from nanopore_dna_storage.config import ExperimentConfig
+    from nanopore_dna_storage.pipeline.encode import encode_bytes
+    from nanopore_dna_storage.pipeline.simulate import simulate_posts
+    from nanopore_dna_storage.pipeline.decode import PipelineDecoder
+    from nanopore_dna_storage.parallel.mesh import ShardedDecoder, data_mesh
+    from nanopore_dna_storage.io.post import pack_posts
 
     exp = ExperimentConfig(bytes_per_oligo=2, rs_redundancy=0.5,
                            conv_mem=11, conv_rate=5, pad=True)
@@ -113,12 +111,12 @@ def test_sharded_decoder_pallas_m11_shapes():
     total = enc.num_oligos_data + enc.num_oligos_rs
 
     sharded = ShardedDecoder(exp, list_size=8, rc=False, max_deviation=8,
-                             mesh=data_mesh(), backend="pallas_interpret",
-                             pallas_chunk=16)
+                             mesh=data_mesh(), backend="traceback",
+                             chunk_blocks=16)
     res = sharded.decode(batch, nblks, total)
 
     single = PipelineDecoder(exp, list_size=8, max_deviation=8,
-                             backend="pallas_interpret", pallas_chunk=16)
+                             backend="traceback", chunk_blocks=16)
     out = single.decode_posts(posts, [False] * len(posts), total)
     assert (res.msgs == out.msgs).all()
     assert res.crc_pass_total == int((out.valid

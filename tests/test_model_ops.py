@@ -4,21 +4,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nanopore_dna_storage_tpu.models import flipflop as ff
-from nanopore_dna_storage_tpu.ops.fwdbwd import (
+from nanopore_dna_storage.models import flipflop as ff
+from nanopore_dna_storage.ops.fwdbwd import (
     transition_posteriors, batched_transition_posteriors,
 )
-from nanopore_dna_storage_tpu.ops.crf_decode import (
+from nanopore_dna_storage.ops.crf_decode import (
     viterbi_flipflop, basecall_from_path,
 )
-from nanopore_dna_storage_tpu.ops.synthetic import synthetic_post, crf_state_path
-from nanopore_dna_storage_tpu.signal.normalize import (
+from nanopore_dna_storage.ops.synthetic import synthetic_post, crf_state_path
+from nanopore_dna_storage.signal.normalize import (
     medmad_normalize, trim_and_segment,
 )
-from nanopore_dna_storage_tpu.signal.barcode import (
+from nanopore_dna_storage.signal.barcode import (
     levenshtein, find_barcode_window,
 )
-from nanopore_dna_storage_tpu.signal.squiggle import simulate_raw_signal
+from nanopore_dna_storage.signal.squiggle import simulate_raw_signal
 
 
 def small_cfg():
@@ -109,7 +109,7 @@ def test_squiggle_sim_runs():
 
 
 def test_weights_header_roundtrip(tmp_path):
-    from nanopore_dna_storage_tpu.models import weights as wmod
+    from nanopore_dna_storage.models import weights as wmod
 
     cfg = small_cfg()
     params = {k: np.asarray(v) for k, v in ff.init_params(cfg, 7).items()}
@@ -131,7 +131,7 @@ def test_weights_header_roundtrip_production_shapes(tmp_path):
     40-state head) survive an .mdl header round-trip bit-exactly —
     proving the loader at the scale of the LFS-absent pretrained blobs
     (networks.c:10-12), not just at test-model size."""
-    from nanopore_dna_storage_tpu.models import weights as wmod
+    from nanopore_dna_storage.models import weights as wmod
 
     cfg = ff.FlipflopConfig(winlen=19, stride=2, conv_filters=256,
                             hidden=256,
@@ -153,7 +153,7 @@ def test_taiyaki_json_import_roundtrip(tmp_path):
     params dict exported to the JSON tree re-imports bit-exactly with
     the right stride and layer directions — the conversion path that
     makes real R9.4.1 models usable the day one is obtainable."""
-    from nanopore_dna_storage_tpu.models import import_taiyaki as it
+    from nanopore_dna_storage.models import import_taiyaki as it
 
     cfg = ff.FlipflopConfig(winlen=19, stride=2, conv_filters=16,
                             hidden=24,

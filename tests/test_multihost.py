@@ -4,8 +4,8 @@ Spawns two coordinator-connected jax.distributed processes (2 virtual CPU
 devices each = a 4-device global mesh), runs the full multi-host decode job
 over a shared .post directory, and checks the merged list files against a
 single-process decode of the same posts. This exercises the exact code path
-an N-host TPU pod would run (global mesh, process-local feeding, cross-host
-reduction) — the TPU-native replacement for the reference's shard-and-merge
+an N-host GPU cluster would run (global mesh, process-local feeding,
+cross-host reduction) — the replacement for the reference's shard-and-merge
 scripts (util/extra/generate_read_id_files.py, merge_lists.py).
 """
 import json
@@ -29,15 +29,15 @@ def _free_port():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("backend", ["oracle", "traceback"])
 def test_multihost_decode_job(tmp_path, backend):
-    from nanopore_dna_storage_tpu.config import ConvCodeConfig
-    from nanopore_dna_storage_tpu.coding.conv import (conv_encode_bases,
+    from nanopore_dna_storage.config import ConvCodeConfig
+    from nanopore_dna_storage.coding.conv import (conv_encode_bases,
                                                       make_conv_code)
-    from nanopore_dna_storage_tpu.coding.framing import frame_oligos
-    from nanopore_dna_storage_tpu.config import ExperimentConfig
-    from nanopore_dna_storage_tpu.ops.synthetic import synthetic_post
-    from nanopore_dna_storage_tpu.io.post import write_post
+    from nanopore_dna_storage.coding.framing import frame_oligos
+    from nanopore_dna_storage.config import ExperimentConfig
+    from nanopore_dna_storage.ops.synthetic import synthetic_post
+    from nanopore_dna_storage.io.post import write_post
 
     exp = ExperimentConfig(bytes_per_oligo=4, rs_redundancy=0.3,
                            conv_mem=6, conv_rate=1)
@@ -65,7 +65,7 @@ def test_multihost_decode_job(tmp_path, backend):
                    PYTHONPATH=REPO)
         procs.append(subprocess.Popen(
             [sys.executable, "-m",
-             "nanopore_dna_storage_tpu.parallel.multihost",
+             "nanopore_dna_storage.parallel.multihost",
              "--coordinator", f"127.0.0.1:{port}",
              "--num-processes", "2", "--process-id", str(pid),
              "--post-dir", str(post_dir), "--outdir", str(outdir),
@@ -82,7 +82,7 @@ def test_multihost_decode_job(tmp_path, backend):
     assert all(p.returncode == 0 for p in procs), "\n".join(outs)
 
     # every read decodes to its true message in the top list entry
-    from nanopore_dna_storage_tpu.io.lists import read_list_file
+    from nanopore_dna_storage.io.lists import read_list_file
     want = ["".join(map(str, m)) for m in msgs]
     got_top = []
     for i in range(n_reads):

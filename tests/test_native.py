@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from nanopore_dna_storage_tpu import native
-from nanopore_dna_storage_tpu.coding.crc import crc8_batch, crc8
-from nanopore_dna_storage_tpu.signal.barcode import levenshtein_windows
+from nanopore_dna_storage import native
+from nanopore_dna_storage.coding.crc import crc8_batch, crc8
+from nanopore_dna_storage.signal.barcode import levenshtein_windows
 
 
 pytestmark = pytest.mark.skipif(not native.available(),
@@ -31,7 +31,7 @@ def test_levenshtein_native_matches_numpy():
 
 
 def test_post_batch_loader(tmp_path):
-    from nanopore_dna_storage_tpu.io.post import write_post
+    from nanopore_dna_storage.io.post import write_post
 
     rng = np.random.default_rng(2)
     paths = []

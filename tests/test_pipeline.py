@@ -4,10 +4,10 @@ reference's commented self-test, helper.py:389-395, as a real test)."""
 import numpy as np
 import pytest
 
-from nanopore_dna_storage_tpu.config import ExperimentConfig
-from nanopore_dna_storage_tpu.pipeline.encode import encode_bytes
-from nanopore_dna_storage_tpu.pipeline.simulate import simulate_and_decode
-from nanopore_dna_storage_tpu.pipeline.decode import (
+from nanopore_dna_storage.config import ExperimentConfig
+from nanopore_dna_storage.pipeline.encode import encode_bytes
+from nanopore_dna_storage.pipeline.simulate import simulate_and_decode
+from nanopore_dna_storage.pipeline.decode import (
     PipelineDecoder, majority_vote, recover_file,
 )
 
@@ -29,7 +29,7 @@ def test_encode_shapes_and_rate():
 def test_end_to_end_file_recovery():
     exp = ExperimentConfig(bytes_per_oligo=6, rs_redundancy=0.6,
                            conv_mem=6, conv_rate=1)
-    data = b"TPU-native nanopore!"  # 20 bytes -> 4 data oligos
+    data = b"nanopore DNA storage"  # 20 bytes -> 4 data oligos
     enc = encode_bytes(data, exp)
     ok, recovered, stats = simulate_and_decode(
         enc, exp, num_reads=40, data_size=len(data), list_size=2, seed=3,
@@ -49,7 +49,7 @@ def test_gated_auto_orientation():
                            conv_mem=6, conv_rate=1)
     data = bytes(range(16))
     enc = encode_bytes(data, exp)
-    from nanopore_dna_storage_tpu.pipeline.simulate import simulate_posts
+    from nanopore_dna_storage.pipeline.simulate import simulate_posts
     rng = np.random.default_rng(1)
     posts, rcs, ids = simulate_posts(enc.oligos, 10, rng, sub_prob=0,
                                      del_prob=0, ins_prob=0)
@@ -74,7 +74,7 @@ def test_error_free_single_batch_decode():
                            conv_mem=6, conv_rate=1)
     data = bytes(range(16))
     enc = encode_bytes(data, exp)
-    from nanopore_dna_storage_tpu.pipeline.simulate import simulate_posts
+    from nanopore_dna_storage.pipeline.simulate import simulate_posts
     rng = np.random.default_rng(0)
     posts, rcs, ids = simulate_posts(enc.oligos, 12, rng, sub_prob=0,
                                      del_prob=0, ins_prob=0)
@@ -87,3 +87,18 @@ def test_error_free_single_batch_decode():
     ok, rec = recover_file(voted, exp, len(data))
     if len(voted) >= enc.num_oligos_data:  # enough coverage
         assert ok and rec == data
+
+
+def test_simulate_and_decode_auto_orientation():
+    """The full loop without the simulator's orientation flags: CRC-gated
+    auto-orientation decode -> vote -> RS recovers the file."""
+    exp = ExperimentConfig(bytes_per_oligo=4, rs_redundancy=0.5,
+                           conv_mem=6, conv_rate=1)
+    data = bytes(range(16))
+    enc = encode_bytes(data, exp)
+    ok, recovered, stats = simulate_and_decode(
+        enc, exp, num_reads=24, data_size=len(data), list_size=2, seed=2,
+        sub_prob=0.0, del_prob=0.0, ins_prob=0.0, max_deviation=16,
+        batch=12, auto_orientation=True)
+    assert stats.crc_pass == stats.num_reads == 24
+    assert ok and recovered == data

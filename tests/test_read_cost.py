@@ -9,12 +9,12 @@ import os
 import numpy as np
 import pytest
 
-from nanopore_dna_storage_tpu import cli
-from nanopore_dna_storage_tpu.config import ExperimentConfig
-from nanopore_dna_storage_tpu.pipeline.encode import encode_bytes
-from nanopore_dna_storage_tpu.pipeline.simulate import simulate_posts
-from nanopore_dna_storage_tpu.pipeline.decode import PipelineDecoder
-from nanopore_dna_storage_tpu.io.lists import write_list_file
+from nanopore_dna_storage import cli
+from nanopore_dna_storage.config import ExperimentConfig
+from nanopore_dna_storage.pipeline.encode import encode_bytes
+from nanopore_dna_storage.pipeline.simulate import simulate_posts
+from nanopore_dna_storage.pipeline.decode import PipelineDecoder
+from nanopore_dna_storage.io.lists import write_list_file
 
 
 @pytest.mark.slow

@@ -5,7 +5,7 @@ import json
 import numpy as np
 import pytest
 
-from nanopore_dna_storage_tpu.coding.rs import (
+from nanopore_dna_storage.coding.rs import (
     RS16, rs_encode_oligos, rs_decode_oligos, gf_mul, gf_inv, alpha_pow,
 )
 

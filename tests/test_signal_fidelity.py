@@ -11,9 +11,9 @@ framing.py. Asserts substantial decode accuracy.
 import numpy as np
 import pytest
 
-from nanopore_dna_storage_tpu.config import ExperimentConfig
-from nanopore_dna_storage_tpu.pipeline.encode import encode_bytes
-from nanopore_dna_storage_tpu.pipeline.simulate import (
+from nanopore_dna_storage.config import ExperimentConfig
+from nanopore_dna_storage.pipeline.encode import encode_bytes
+from nanopore_dna_storage.pipeline.simulate import (
     simulate_and_decode_signal)
 
 

@@ -4,8 +4,8 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from nanopore_dna_storage_tpu.models import flipflop as ff
-from nanopore_dna_storage_tpu.models.train import (
+from nanopore_dna_storage.models import flipflop as ff
+from nanopore_dna_storage.models.train import (
     train_on_synthetic, crf_loss, synthetic_batches,
 )
 

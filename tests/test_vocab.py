@@ -5,9 +5,9 @@ import json
 import numpy as np
 import pytest
 
-from nanopore_dna_storage_tpu.ops.vocab import decode_post_vocab
-from nanopore_dna_storage_tpu.config import ConvCodeConfig, DecodeConfig
-from nanopore_dna_storage_tpu.ops.lva import LVADecoder
+from nanopore_dna_storage.ops.vocab import decode_post_vocab
+from nanopore_dna_storage.config import ConvCodeConfig, DecodeConfig
+from nanopore_dna_storage.ops.lva import LVADecoder
 
 
 def test_vocab_golden_parity(golden_dir):
@@ -29,9 +29,9 @@ def test_vocab_short_post_rejected():
 def test_logsumexp_combine_scores_dominate_max():
     """With logsumexp combining, merged-path scores are >= max-combining
     scores and the decoded top message on a clean post is unchanged."""
-    from nanopore_dna_storage_tpu.coding.conv import (
+    from nanopore_dna_storage.coding.conv import (
         make_conv_code, conv_encode_bases)
-    from nanopore_dna_storage_tpu.ops.synthetic import synthetic_post
+    from nanopore_dna_storage.ops.synthetic import synthetic_post
 
     rng = np.random.default_rng(11)
     cfg = ConvCodeConfig(mem=6, rate=1, msg_len=40)
