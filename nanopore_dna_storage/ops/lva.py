@@ -494,10 +494,6 @@ class LVADecoder:
     def decode(self, posts: np.ndarray, nblks: Optional[np.ndarray] = None):
         """Decode a batch.
 
-        The batch is padded to a power of two (repeating the last read), so
-        the subsets that CRC-gated orientation re-decodes reuse a few
-        compiled batch shapes instead of compiling one per size.
-
         Args:
           posts: [B, T, 5, 8] float32 (zero-padded beyond each read's nblk).
           nblks: [B] actual block counts (default: all T).
@@ -512,12 +508,6 @@ class LVADecoder:
         if (nblks < self.spec.code.nstate_pos + 1).any():
             raise ValueError("post matrix shorter than nstate_pos+1 blocks "
                              "(cpp:600-601)")
-        Bp = 1 << (B - 1).bit_length()
-        if Bp != B:
-            m, sc, valid = self.decode(
-                np.concatenate([posts, np.repeat(posts[-1:], Bp - B, 0)]),
-                np.concatenate([nblks, np.repeat(nblks[-1:], Bp - B)]))
-            return m[:B], sc[:B], valid[:B]
         starts = self.schedule(nblks, T)
         if self.traceback is not None:
             if T % 2:  # the traceback forward runs 2-block scan steps

@@ -8,13 +8,12 @@ against the message-carrying oracle (ops/lva.py) and the golden lists.
 Design notes (docs/DESIGN.md §5 has the long version):
 
 * **Shift-register predecessors.** Conv state ``s`` is entered from
-  ``(k*s + c) mod C`` (k = 2 for pattern 0, 4 otherwise); over the whole
-  conv axis that is a reshape view (``ops.lva._expand_minor``), not a
-  gather.
+  ``(k*s + c) mod C`` (k = 2 for pattern 0, 4 otherwise).
 * **Base-compacted candidate lists.** Bit 0 of both generator polynomials
   is 1 for every supported code, so (dropped bits c) -> emitted base is
-  injective per (pattern, state): after expansion the candidate planes
-  compact to ONE plane per emitted base (the ``cstar`` table), and each
+  injective per (pattern, state): the candidate planes compact to ONE
+  plane per emitted base, gathered from ``(k*s + cstar) mod C`` (the
+  ``cstar`` table names the one c per (pattern, base, state)), and each
   CRF destination merges 1 + |G_f| <= 8 sorted lists (stay + one per legal
   CRF predecessor, cpp:878-889) instead of 1 + 4*|G_f|.
 * **Suppression merge.** The reference's lazy heap with message dedup
@@ -41,10 +40,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..trellis import tables as tb
-from .lva import HASH_P1, HASH_P2, _expand_minor, _hash_update
+from .lva import HASH_P1, HASH_P2, _hash_update
 
 NCRF = 8
-NC = 4  # conv candidate slots (2 used by pattern 0)
 NEG = float("-inf")
 
 # static CRF move mask: flip f from any g != f; flop f from flip f-4 only
@@ -116,24 +114,17 @@ def _compact_moves(spec, dev, src, pat, posgate):
     already extended by the appended message bits."""
     C = spec.code.nstate_conv
     is1 = (pat == 0)[:, None, None, None]  # [W, 1, 1, 1]
-    cst = dev["cstar"][pat]  # [W, 4 base, C]
+    cst = dev["cstar"][pat][:, :, None, None, :]  # [W, 4 base, 1, 1, C]
     shift = jnp.where(is1, 1, 2).astype(jnp.uint32)
     nb = jnp.where(is1, dev["nbits"][0], dev["nbits"][1])  # [W,1,1,C]
+    # state s is entered with base beta from (k*s + cstar) mod C, the
+    # traceback's predecessor step (k = 2 for pattern 0, else 4)
+    k = jnp.where(is1, 2, 4)[:, None]  # [W, 1, 1, 1, 1]
+    prev = (k * jnp.arange(C) + jnp.maximum(cst, 0)) % C
 
     def compact(x, fill):
-        e2 = _expand_minor(x, 2, C)  # [W, 8, L, 2, C]
-        e4 = _expand_minor(x, 4, C)  # [W, 8, L, 4, C]
-        # candidate c of the position's own pattern (c < 2 for pattern 0)
-        ec = [jnp.where(is1, e2[..., c, :], e4[..., c, :]) for c in range(2)]
-        ec += [e4[..., c, :] for c in range(2, NC)]
-        out = []
-        for beta in range(4):
-            cb = cst[:, beta][:, None, None, :]  # [W, 1, 1, C]
-            v = jnp.full_like(x, fill)
-            for c in range(NC):
-                v = jnp.where(cb == c, ec[c], v)
-            out.append(v)
-        return jnp.stack(out, axis=1)
+        v = jnp.take_along_axis(x[:, None], prev, axis=-1)
+        return jnp.where(cst >= 0, v, fill)  # [W, 4 base, 8, L, C]
 
     sc = compact(src[0], NEG)
     sc = jnp.where(posgate[:, None, None, None, None], sc, NEG)

@@ -180,10 +180,7 @@ def simulate_and_decode_signal(enc: EncodeResult, exp: ExperimentConfig,
         posts, rcs, ids = simulate_posts_signal(
             enc.oligos, n, rng, params, model_cfg, kmer=kmer,
             profile=profile)
-        if auto_orientation:
-            out, _ = dec.decode_posts_auto_orientation(posts, num_oligos)
-        else:
-            out = dec.decode_posts(posts, rcs, num_oligos)
+        out = dec.decode_posts(posts, rcs, num_oligos)
         stats.num_reads += n
         stats.crc_pass += int((out.index >= 0).sum())
         for j in range(n):
